@@ -1,11 +1,10 @@
 """Shared bootstrap for the 8M hard-mixture artifact cache.
 
 gp_fidelity_8m / qa_ogp_8m consume the GT + subsample-GP partition + router
-that hard_serve_bench.py computes (~50 min on chip). ~/.cache does not
-survive host recycles, so the compact artifact ships in the repo
-(exp_artifacts/hardserve_8m_cache.npz, same discipline as bench.py); this
-helper materializes it into the expected ~/.cache path so each experiment
-can run standalone in any order.
+that hard_serve_bench.py computes (~50 min to rebuild), so the compact
+artifact ships in the repo (exp_artifacts/hardserve_8m_cache.npz, same
+discipline as bench.py); this helper materializes it into the artifact
+cache path so each experiment can run standalone in any order.
 """
 
 import os

@@ -5,7 +5,7 @@ The reference partitions the kNN graph of the ENTIRE point set even at 1B
 graph on a subsample and Voronoi-extends via per-part aggregates. This
 script measures what that approximation costs at the flagship resident
 scale, where the full base fits host RAM and the full 8M graph is buildable
-on the chip: same base / GT / queries as exp_scripts/hard_serve_bench.py
+on the GPU: same base / GT / queries as exp_scripts/hard_serve_bench.py
 (run that first — its cache provides GT + the 1M-subsample GP partition),
 plus a full-graph GP partition, compared on
 
@@ -58,7 +58,9 @@ def main() -> int:
     from gpann_tpu.route import KMeansTreeRouter, KMeansTreeRouterOptions
     from gpann_tpu.search.serve import ServingEngine
 
-    cache_dir = os.path.expanduser("~/.cache/gpann_tpu")
+    from gpann_tpu import artifact_dir
+
+    cache_dir = artifact_dir()
     hs_cache = os.path.join(cache_dir,
                             f"hardserve_{SEED}_{N}_{D}_{NQ}_{SHARDS}.npz")
     from _hardserve_cache import ensure_hardserve

@@ -50,7 +50,9 @@ def main() -> int:
     from gpann_tpu.route import KMeansTreeRouter, KMeansTreeRouterOptions
     from gpann_tpu.search.serve import ServingEngine
 
-    cache_dir = os.path.expanduser("~/.cache/gpann_tpu")
+    from gpann_tpu import artifact_dir
+
+    cache_dir = artifact_dir()
     os.makedirs(cache_dir, exist_ok=True)
     pts, _ = dataset_cached("hard", N, D, SEED)
     q = generate_queries("hard", NQ, D, SEED)
@@ -62,7 +64,7 @@ def main() -> int:
     if "assign" not in art and not os.environ.get("GPANN_SMOKE"):
         # cold-start bootstrap from the repo-shipped compact artifact (same
         # discipline as bench.py): GT + GP partition + router cost ~50 min
-        # to recompute on chip, and ~/.cache does not survive host recycles
+        # to recompute
         repo_art = os.path.join(
             os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
             "exp_artifacts", "hardserve_8m_cache.npz")
@@ -83,7 +85,7 @@ def main() -> int:
             from gpann_tpu.eval.recall import verify_ground_truth
             from gpann_tpu.search.pallas_scan import fused_topk, pad_base_for_scan
 
-            padded0, nv0 = pad_base_for_scan(pts, "l2")
+            padded0, nv0 = pad_base_for_scan(pts)
             pj0 = jnp.asarray(padded0)
             gt_raw = np.asarray(fused_topk(jnp.asarray(q), pj0, nv0, 2 * K)[1])
             gt_ids, gt_dists = verify_ground_truth(
@@ -169,7 +171,7 @@ def main() -> int:
     log(f"serve: {qps:.0f} qps ({lat*1e3:.1f} ms/batch)")
 
     out = {
-        "metric": f"qps_per_chip@recall{TARGET}_synthetic-hard{N//1_000_000}M-{SHARDS}shards",
+        "metric": f"qps@recall{TARGET}_synthetic-hard{N//1_000_000}M-{SHARDS}shards",
         "value": round(qps, 1), "unit": "qps",
         "recall_at_10": round(float(recall), 4),
         "nprobes": nprobes, "num_shards": SHARDS, "batch": NQ,

@@ -4,7 +4,7 @@ VERDICT r3 weak #5: the 16M/32 MIPS GP run needed 13 probes for recall
 0.95 (vs 3-4 for L2) — the T2I problem: high-norm points attract queries
 across partition boundaries. The reference's own answer is overlapping
 clustering (OGP/centroid overlap, overlapping_partitioning.cpp:143-235).
-This measures it at the resident 8M/32 scale on the chip:
+This measures it at the resident 8M/32 scale on the GPU:
 
   arm A: subsample-GP MIPS partition, recall curve (baseline)
   arm B: same partition + centroid-ranked overlap (o=0.2): each point may
@@ -61,7 +61,9 @@ def main() -> int:
     from gpann_tpu.route import KMeansTreeRouter, KMeansTreeRouterOptions
     from gpann_tpu.search.serve import ServingEngine
 
-    cache_dir = os.path.expanduser("~/.cache/gpann_tpu")
+    from gpann_tpu import artifact_dir
+
+    cache_dir = artifact_dir()
     pts, _ = dataset_cached("hard", N, D, SEED)
     q = generate_queries("hard", NQ, D, SEED)
     log(f"data ready {pts.shape}")

@@ -44,7 +44,9 @@ def main() -> int:
     from gpann_tpu.gp.scale import gp_aggregates
 
     budgets = sys.argv[1] if len(sys.argv) > 1 else "40000,400000"
-    cache_dir = os.path.expanduser("~/.cache/gpann_tpu")
+    from gpann_tpu import artifact_dir
+
+    cache_dir = artifact_dir()
     # the full-scale NQ here (1024) is a prefix of hard_serve_bench's 4096
     # query draw ONLY if the generator seeds identically; write our own GT
     # file path and let the CLI verify/compute as needed.

@@ -1,8 +1,8 @@
-"""gpann_tpu — a TPU-native (JAX/XLA/Pallas) framework with the capabilities of
-gp-ann (larsgottesbueren/gp-ann): billion-scale partitioned approximate
-nearest-neighbor search.
+"""gpann_tpu — a GPU-accelerated (JAX/XLA/Pallas) framework with the
+capabilities of gp-ann (larsgottesbueren/gp-ann): billion-scale partitioned
+approximate nearest-neighbor search.
 
-Layer map (mirrors reference SURVEY.md §1, re-designed TPU-first):
+Layer map (mirrors reference SURVEY.md §1, re-designed accelerator-first):
 
 - ``core``    — vector I/O, distance matmul kernels, top-k, segment ops, timers.
 - ``cluster`` — Lloyd / balanced / hierarchical k-means.
@@ -18,31 +18,38 @@ Layer map (mirrors reference SURVEY.md §1, re-designed TPU-first):
 __version__ = "0.1.0"
 
 
+import os
+
+# the checkout this package runs from; caches live inside it, git-ignored
+CHECKOUT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def artifact_dir() -> str:
+    """Directory for cached data and build artifacts (datasets, partitions,
+    ground truth, shard stores): ``GPANN_CACHE_DIR`` if set, else
+    ``<checkout>/.bench_cache``. Created on first use."""
+    path = os.environ.get("GPANN_CACHE_DIR") or os.path.join(
+        CHECKOUT, ".bench_cache")
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+def _compilation_cache_dir() -> str | None:
+    """Where compiled programs persist across processes: JAX's own
+    ``JAX_COMPILATION_CACHE_DIR`` when set (None: nothing to set here), else
+    a fixed path inside the checkout. The path is part of the cache's key,
+    so it must not move between runs."""
+    if os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        return None
+    return os.path.join(CHECKOUT, ".jax_cache")
+
+
 def _enable_compilation_cache() -> None:
-    """Persist XLA compilations across processes.
-
-    The TPU backend in this environment takes 20-75s per kernel compile; the
-    pipeline CLIs are multi-process (reference L7 orchestration pattern), so
-    a persistent cache is a large end-to-end win. Opt out with
-    GPANN_TPU_NO_COMPILE_CACHE=1.
-    """
-    import os
-
-    if os.environ.get("GPANN_TPU_NO_COMPILE_CACHE"):
-        return
-    try:
+    path = _compilation_cache_dir()
+    if path is not None:
         import jax
 
-        if jax.config.jax_compilation_cache_dir is None:
-            path = os.environ.get(
-                "GPANN_TPU_COMPILE_CACHE_DIR",
-                os.path.expanduser("~/.cache/gpann_tpu/jax_cache"),
-            )
-            os.makedirs(path, exist_ok=True)
-            jax.config.update("jax_compilation_cache_dir", path)
-            jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:  # cache is an optimization; never fail import
-        pass
+        jax.config.update("jax_compilation_cache_dir", path)
 
 
 _enable_compilation_cache()

@@ -1,10 +1,10 @@
 """DistributedBench CLI — measured multi-device query benchmark.
 
-The TPU-native realization of the reference's MPI prototype
+The accelerator realization of the reference's MPI prototype
 (``distributed_bench.cpp`` + ``src/distributed_query_benchmark.h``, C16 —
 disabled and non-compiling in the reference's build, SURVEY.md §5.8). Here it
 is real: shards live across the device mesh (``gpann_tpu.dist``), queries are
-routed on every device, candidate lists merge over ICI collectives, and the
+routed on every device, candidate lists merge over device collectives, and the
 QPS is *measured*, not simulated.
 
 Single-host it uses all local devices; multi-host, launch one process per

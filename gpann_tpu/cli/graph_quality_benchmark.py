@@ -48,8 +48,7 @@ def main(argv=None) -> int:
     }
     # resumable: completed (reps, fanout, mcs, degree) rows in an existing
     # out_csv are kept and skipped, so the 125-config grid survives
-    # interruption (the reference reruns from scratch; a remote-TPU grid run
-    # must not)
+    # interruption (the reference reruns from scratch)
     header = ("reps,fanout,max_cluster_size,degree,graph_recall,"
               "first_shard_oracle_recall")
     rows = [header]

@@ -1,6 +1,6 @@
 """Clustering layer: Lloyd / balanced / hierarchical k-means.
 
-TPU-first replacement for the reference's ``src/kmeans.cpp`` and the
+Replacement for the reference's ``src/kmeans.cpp`` and the
 hierarchical k-means in ``src/partitioning.cpp:360-507``.
 """
 

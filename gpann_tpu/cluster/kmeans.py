@@ -2,16 +2,16 @@
 
 Reference parity: ``src/kmeans.cpp``.
 
-TPU redesign notes:
+Accelerator redesign notes:
 
 - The assignment step (reference ``kmeans.cpp:12-27`` — parallel brute-force
-  top-1) is one [n,d]x[d,k] matmul + row argmin on the MXU.
+  top-1) is one [n,d]x[d,k] matmul + row argmin.
 - Aggregation (``kmeans.cpp:72-100`` and the blocked-atomic variant at
   ``:151-204``) becomes ``jax.ops.segment_sum`` — no atomics exist or are
   needed.
 - ``BalancedKMeans`` (``kmeans.cpp:253-515``) runs 1000 *sequential*
   mini-batches per round with in-flight atomic centroid updates — inherently
-  scalar-sequential. The TPU-native variant keeps the *semantics* (penalized
+  scalar-sequential. The accelerator variant keeps the *semantics* (penalized
   score ``dist + penalty * cluster_size``, BKM+ penalty schedule, keep-best
   balanced solution, final greedy re-migration) but applies moves in
   batched-synchronous mini-batches under ``lax.scan``: every mini-batch scores
@@ -268,7 +268,7 @@ def balanced_kmeans(
     assignment scrambles in one round and the centroids collapse toward the
     global mean — measured first-probe oracle recall fell from ~0.72 to 0.19.
 
-    TPU-native redesign with the same guarantee (max size <= cap) and better
+    Redesign with the same guarantee (max size <= cap) and better
     objectives:
 
     1. Lloyd warm start (structured centroids).
@@ -353,8 +353,8 @@ def _capacity_priority_assign(
 
     def nearest_open(chunk: np.ndarray):
         # device-side masked argmin: reads back 8 bytes/point instead of the
-        # [m, k] distance matrix (D2H here is ~20 MB/s); power-of-two row
-        # padding bounds compiles across ragged retry rounds
+        # [m, k] distance matrix; power-of-two row padding bounds compiles
+        # across ragged retry rounds
         real = len(chunk)
         m_pad = max(256, 1 << (real - 1).bit_length())
         if m_pad != real:

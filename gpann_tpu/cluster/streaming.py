@@ -1,13 +1,13 @@
-"""Streaming (out-of-HBM) clustering for 100M-1B point datasets.
+"""Streaming (beyond-device-memory) clustering for 100M-1B point datasets.
 
 SURVEY.md §5.7: the reference handles scale by making each shard fit one
-machine and by blocked aggregation (``kmeans.cpp:151-204``). On TPU, the
-dataset may exceed HBM (1B x 96 f32 = 384 GB): these routines stream
+machine and by blocked aggregation (``kmeans.cpp:151-204``). Here the
+dataset may exceed device memory (1B x 96 f32 = 384 GB): these routines stream
 host-resident (memmap-able) points through the device in fixed-size chunks.
 
 - :func:`streaming_kmeans` — Lloyd with device-side per-chunk assignment +
   segment sums, host-side accumulation across chunks. Arbitrarily large n;
-  HBM holds one chunk + centroids.
+  the device holds one chunk + centroids.
 - :func:`streaming_capacity_partition` — balanced partition at scale:
   streaming Lloyd warm start, then distance-priority capacity-constrained
   assignment per chunk with global per-part budgets (the Pyramid assignment
@@ -32,8 +32,8 @@ def _masked_nearest(chunk, centroids, open_mask, metric: Metric = "l2"):
     """(nearest OPEN centroid, its distance) per point, on device.
 
     Readback is [m] int32 + [m] f32 (8 bytes/point) instead of the full
-    [m, k] distance matrix — decisive on this stack's ~20 MB/s D2H link
-    (a 64M-point admission pass would read back 16 GB otherwise)."""
+    [m, k] distance matrix (a 64M-point admission pass would read back 16 GB
+    otherwise)."""
     dm = pairwise_distances(chunk, centroids, metric)
     dm = jnp.where(open_mask[None, :], dm, jnp.inf)
     tgt = jnp.argmin(dm, axis=1).astype(jnp.int32)
@@ -166,8 +166,8 @@ class RepSet:
         self.r_pad = r_pad
 
     def max_chunk_rows(self, chunk_rows: int) -> int:
-        """Bound the masked-argmin's [m, r_pad] f32 HBM tile to ~4 GB
-        (measured: 1M x 4097 = 17.2 GB OOM'd a 16 GB v5e)."""
+        """Bound the masked-argmin's [m, r_pad] f32 device tile to ~4 GB
+        (a conservative limit: 1M x 4097 rows would take 17.2 GB)."""
         max_rows = max(65536, (1 << 30) // self.r_pad)
         return min(chunk_rows, 1 << (max_rows.bit_length() - 1))
 

@@ -1,6 +1,6 @@
 """Core layer: vector I/O, distance kernels, top-k, segment ops, partitions.
 
-TPU-first replacement for the reference's L1/L2 (``src/defs.h``, ``src/dist.cpp``,
+Replacement for the reference's L1/L2 (``src/defs.h``, ``src/dist.cpp``,
 ``src/points_io.cpp``, ``src/metis_io.cpp``, ``src/topn.h``).
 """
 

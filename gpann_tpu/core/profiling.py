@@ -1,7 +1,7 @@
 """Tracing / profiling utilities.
 
 Reference parity (SURVEY.md §5.1): the reference hand-rolls timers and
-piggybacks distance counters on hnswlib. TPU-native equivalents:
+piggybacks distance counters on hnswlib. Accelerator equivalents:
 
 - :func:`trace` — ``jax.profiler`` trace context (view in TensorBoard /
   xprof); wraps a pipeline stage.
@@ -31,10 +31,10 @@ def trace(log_dir: str) -> Iterator[None]:
         jax.profiler.stop_trace()
 
 
-def flops_of_scan(num_queries: int, num_points: int, dim: int,
-                  passes: int = 3) -> int:
-    """FLOPs of one distance scan (HIGH precision = 3 bf16 passes)."""
-    return 2 * num_queries * num_points * dim * passes
+def flops_of_scan(num_queries: int, num_points: int, dim: int) -> int:
+    """FLOPs of one distance scan's matrix product (one TF32 pass at HIGH
+    precision on the GPU)."""
+    return 2 * num_queries * num_points * dim
 
 
 def distance_computations(num_queries: int, num_points: int) -> int:

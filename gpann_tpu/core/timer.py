@@ -1,13 +1,15 @@
 """Accumulating timer (reference ``Timer``, ``src/defs.h:61-98``) plus a
 device-aware measurement helper following the reference's benchmark hygiene:
 median of repetitions (``shard_searches.cpp:57-68``) and explicit completion
-barriers (TPU equivalent of wall-clock timing: ``block_until_ready``)."""
+barriers (device equivalent of wall-clock timing: ``block_until_ready``)."""
 
 from __future__ import annotations
 
 import statistics
 import time
 from typing import Callable
+
+import jax
 
 
 class Timer:
@@ -38,23 +40,14 @@ class Timer:
         return self.total_duration
 
 
-def _block(x):
-    try:
-        import jax
-
-        return jax.block_until_ready(x)
-    except Exception:
-        return x
-
-
 def time_fn(fn: Callable, *args, reps: int = 5, warmup: int = 1):
     """Median-of-reps timing with device sync; returns (median_s, result)."""
     result = None
     for _ in range(max(warmup, 0)):
-        result = _block(fn(*args))
+        result = jax.block_until_ready(fn(*args))
     times = []
     for _ in range(max(reps, 1)):
         t0 = time.perf_counter()
-        result = _block(fn(*args))
+        result = jax.block_until_ready(fn(*args))
         times.append(time.perf_counter() - t0)
     return statistics.median(times), result

@@ -1,6 +1,6 @@
 """Distributed layer: shard mesh, collective query scatter / top-k merge.
 
-TPU-native realization of the reference's MPI prototype (C16, SURVEY.md §5.8).
+Realization of the reference's MPI prototype (C16, SURVEY.md §5.8).
 """
 
 from gpann_tpu.dist.mesh import (

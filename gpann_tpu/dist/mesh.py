@@ -1,6 +1,6 @@
 """Multi-device distributed query engine over a shard mesh.
 
-This is the TPU-native realization of the reference's *prototype* MPI
+This is the Accelerator realization of the reference's *prototype* MPI
 distributed benchmark (``src/distributed_query_benchmark.h``,
 ``distributed_bench.cpp`` — disabled in its build, see SURVEY.md §5.8).
 Design per SURVEY.md §5.8:
@@ -14,11 +14,11 @@ Design per SURVEY.md §5.8:
   list; per-device top-k candidate lists are merged with one ``all_gather``
   over the shard axis (fixed [ndev, m, k] shape — k is small) — replacing the
   reference's float-stream Request/Response MPI protocol
-  (``distributed_query_benchmark.h:107-135``) with dense ICI collectives.
+  (``distributed_query_benchmark.h:107-135``) with dense device collectives.
 - Multi-host: the same code runs under ``jax.distributed.initialize`` with a
   global mesh; no code changes (the mesh covers all processes' devices).
 
-The per-device compute reuses the single-chip fused scan+rescore kernels.
+The per-device compute reuses the single-device fused scan+rescore kernels.
 """
 
 from __future__ import annotations
@@ -152,7 +152,7 @@ class DistributedIVF:
                 queries, probes, blocks, sizes, ids, shard_offset, k,
                 metric, precision, rescore,
             )
-            # merge candidate lists across the shard axis (ICI all-gather)
+            # merge candidate lists across the shard axis (all-gather)
             all_d = jax.lax.all_gather(d, "shard", axis=0)  # [ndev, m, k]
             all_i = jax.lax.all_gather(i, "shard", axis=0)
             m = d.shape[0]
@@ -212,15 +212,15 @@ class DistributedServingEngine(DistributedIVF):
 
     The reference's ranks route their own query stripe locally and pipeline
     doubling batches to overlap routing with remote search
-    (``distributed_query_benchmark.h:148-180``). TPU-native equivalent:
+    (``distributed_query_benchmark.h:148-180``). Accelerator equivalent:
 
     - the routing points (small) are replicated to every device; each device
       routes its dp-slice of queries on-device with the same
-      :func:`gpann_tpu.search.serve._probe_rank` fold as the single-chip
+      :func:`gpann_tpu.search.serve._probe_rank` fold as the single-device
       engine (all four hnsw_router.h rules) — zero communication, exactly
       "ranks route locally";
     - a ``lax.scan`` over fixed query microbatches replaces the doubling
-      batches: each step's ICI ``all_gather`` merge can overlap the next
+      batches: each step's ``all_gather`` merge can overlap the next
       step's local scan under XLA's async collectives;
     - one program: no host round-trip between routing and search (the
       reference ships query vectors over MPI; here the probe decision never
@@ -364,7 +364,7 @@ class DistributedServingEngine(DistributedIVF):
 
 # ---------------------------------------------------------------------------
 # Sharded index-build step (the framework's "training step"): one Lloyd
-# round with points sharded over dp and centroid stats psum-reduced over ICI.
+# round with points sharded over dp and centroid stats psum-reduced.
 # ---------------------------------------------------------------------------
 
 

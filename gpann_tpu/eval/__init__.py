@@ -1,6 +1,6 @@
 """Evaluation layer: ground truth, recall, oracle recall, QPS simulation.
 
-TPU-first replacement for the reference's L5 (``src/recall.h``,
+Replacement for the reference's L5 (``src/recall.h``,
 ``src/route_search_combination.{h,cpp}``).
 """
 

@@ -3,7 +3,7 @@
 Reference parity: ``src/recall.h``.
 
 - :func:`compute_ground_truth` — brute-force exact kNN of the queries in the
-  full base set (``recall.h:10-39``). On TPU this is one giant blocked
+  full base set (``recall.h:10-39``). Here this is one giant blocked
   matmul + running top-k; it runs at HIGHEST matmul precision because ties
   and epsilon comparisons feed the recall definition.
 - :func:`kth_neighbor_distance` / :func:`verify_ground_truth` — the
@@ -39,12 +39,11 @@ def compute_ground_truth(
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Exact kNN ids+distances of each query (reference ComputeGroundTruth).
 
-    Two-phase on TPU: HIGH-precision (bf16x3, ~2^-16 relative error) MXU scan
-    over-collects ``scan_oversample*k + 16`` candidates, then their distances
-    are recomputed exactly in f32 and the true top-k selected. HIGHEST-
-    precision matmuls are ~60x slower on this backend and unnecessary: a true
-    neighbor is only lost if an inter-candidate gap is below ~1e-4 relative
-    at the oversample boundary — far below the tolerance the reference itself
+    Two-phase: a HIGH-precision scan (TF32 on the GPU) over-collects
+    ``scan_oversample*k + 16`` candidates, then their distances are
+    recomputed exactly in f32 and the true top-k selected. A true neighbor is
+    only lost if an inter-candidate gap at the oversample boundary is below
+    the scan's rounding error — far below the tolerance the reference itself
     accepts when verifying published GT files (recall.h:74-137). Set
     ``scan_oversample=0`` to force the single-phase HIGHEST path.
     """
@@ -159,7 +158,7 @@ def recall_from_ids(
 ) -> float:
     """recall@k with candidate distances *recomputed exactly* from ids.
 
-    Search kernels may run at bf16 matmul precision; recomputing the
+    Search kernels may run at reduced matmul precision; recomputing the
     candidates' distances at full precision keeps the distance-threshold
     recall definition (recall.h:139-150) unbiased regardless of the search
     path's precision. ``cand_ids`` may contain -1 padding.

@@ -344,13 +344,47 @@ class VirtualPoints:
         return out
 
 
+def blobs(n: int, d: int, nq: int, seed: int = 555,
+          num_blobs: int = 64) -> Tuple[np.ndarray, np.ndarray]:
+    """The headline benchmark's DEEP-shaped data: ``num_blobs`` Gaussian
+    blobs (center scale 2, noise 0.6). Returns (base [n, d], queries
+    [nq, d]) float32, identical for one seed on every machine. Base rows draw
+    in 1M-row chunks: a Generator stream is sequential, so chunking changes
+    no value and bounds the float64 temporaries."""
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((num_blobs, d)).astype(np.float32) * 2.0
+    lbl = rng.integers(0, num_blobs, size=n)
+    pts = np.empty((n, d), np.float32)
+    for s in range(0, n, 1 << 20):
+        e = min(s + (1 << 20), n)
+        pts[s:e] = centers[lbl[s:e]] + 0.6 * rng.standard_normal((e - s, d))
+    q = (centers[rng.integers(0, num_blobs, size=nq)]
+         + 0.6 * rng.standard_normal((nq, d))).astype(np.float32)
+    return pts, q
+
+
+def blob_queries(nq: int, d: int, seed: int = 555, draw_seed: int = 557,
+                 num_blobs: int = 64) -> np.ndarray:
+    """``nq`` further queries from the :func:`blobs` mixture of ``seed``,
+    drawn from ``default_rng(draw_seed)``."""
+    # the centers are the first draw of the blobs() stream for ``seed``
+    centers = (np.random.default_rng(seed).standard_normal((num_blobs, d))
+               .astype(np.float32) * 2.0)
+    rng = np.random.default_rng(draw_seed)
+    return (centers[rng.integers(0, num_blobs, size=nq)]
+            + 0.6 * rng.standard_normal((nq, d))).astype(np.float32)
+
+
 def dataset_cached(
     kind: str, n: int, d: int, seed: int = 555,
     cache_dir: Optional[str] = None,
     dtype: str = "f32",
 ) -> Tuple[np.ndarray, str]:
     """Memmap-backed dataset cached on disk; returns (memmap, path)."""
-    cache_dir = cache_dir or os.path.expanduser("~/.cache/gpann_tpu")
+    if cache_dir is None:
+        from gpann_tpu import artifact_dir
+
+        cache_dir = artifact_dir()
     os.makedirs(cache_dir, exist_ok=True)
     suffix = "" if dtype == "f32" else f"_{dtype}"
     path = os.path.join(cache_dir, f"synth_{kind}_{seed}_{n}x{d}{suffix}.npy")

@@ -1,7 +1,7 @@
 """Graph-partitioning layer: balanced multilevel partitioner (KaMinPar
 replacement), flat partitioning methods, overlapping variants.
 
-TPU-first replacement for the reference's L3 (``src/partitioning.cpp``,
+Replacement for the reference's L3 (``src/partitioning.cpp``,
 ``src/overlapping_partitioning.cpp``) + KaMinPar.
 """
 

@@ -7,7 +7,7 @@ constraint, optional node weights, and a default/strong preset. Per
 SURVEY.md §7, quality is judged by *downstream oracle/routing recall*, not
 edge-cut parity.
 
-TPU-native multilevel design:
+Accelerator multilevel design:
 
 1. **Coarsening** (host, NumPy): repeated heavy-edge *mutual matching* — each
    node proposes to its heaviest neighbor, mutual proposals contract. Node

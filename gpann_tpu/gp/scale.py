@@ -6,11 +6,11 @@ subsampling: partition a subsample's aggregates, then assign every point to
 the partition of its nearest aggregate under a capacity constraint with
 retry rounds (``src/partitioning.cpp:266-356``); OurPyramid runs the graph
 partitioner on coarse representatives (``partitioning.cpp:509-552``). This
-module composes those two ideas TPU-first:
+module composes those two ideas accelerator-first:
 
 1. **Subsample** ``num_subsample`` points (in host RAM).
 2. **GP on the subsample**: approximate kNN graph (leader sketching on the
-   MXU, :mod:`gpann_tpu.graph.knn`) + balanced LP partition
+   matmul, :mod:`gpann_tpu.graph.knn`) + balanced LP partition
    (:mod:`gpann_tpu.gp.lp`) — the flagship method itself, at a size the
    in-RAM builder handles.
 3. **Aggregate within parts**: per-part k-means on the subsample members

@@ -1,6 +1,6 @@
 """kNN-graph layer: exact oracle + approximate leader-sketching builder.
 
-TPU-first replacement for the reference's ``src/knn_graph.h``.
+Replacement for the reference's ``src/knn_graph.h``.
 """
 
 from gpann_tpu.graph.knn import (

@@ -11,13 +11,13 @@ Reference parity: ``src/knn_graph.h``.
   per-point top-k across buckets with dedup (``:165-250``). Tuning constants
   mirror ``knn_graph.h:254-265``.
 
-TPU redesign:
+Accelerator redesign:
 
 - Graphs are dense ``[n, num_neighbors]`` int32 arrays (every node has exactly
   k out-neighbors, like the reference's AdjGraph rows) — XLA-friendly, and
   symmetrization produces CSR on host.
 - Leader assignment = tall ``[ids, leaders]`` distance matmul + top-fanout
-  (``ClosestLeaders``, defs.cpp:87-96) on the MXU.
+  (``ClosestLeaders``, defs.cpp:87-96) as a matmul.
 - Bucket brute-force = buckets grouped by padded size, stacked, and crunched
   by a scanned ``[cap, cap]`` distance matmul + top-k per group — the
   spin-locked heap merge becomes a vectorized host merge with dedup.

@@ -1,7 +1,7 @@
 """Native (C++) host components, bound via ctypes.
 
 Role parity: the reference's runtime around the compute kernels is C++
-(parlaylib scheduling, KaMinPar partitioning host logic). Here the TPU owns
+(parlaylib scheduling, KaMinPar partitioning host logic). Here the device owns
 the compute; these C++ ops cover the irregular host-side graph work where
 NumPy/Python loops are orders of magnitude too slow on the single-core build
 host. Every native op has a NumPy fallback (``available() == False`` path)
@@ -46,7 +46,7 @@ def _load() -> Optional[ctypes.CDLL]:
     if _lib is not None or _tried:
         return _lib
     _tried = True
-    if os.environ.get("GPANN_TPU_NO_NATIVE"):
+    if os.environ.get("GPANN_NO_NATIVE"):
         return None
     src_mtime = max(os.path.getmtime(s) for s in _SRCS)
     if not os.path.exists(_LIB_PATH) or os.path.getmtime(_LIB_PATH) < src_mtime:

@@ -1,7 +1,7 @@
 // Native host ops for the balanced graph partitioner (gpann_tpu.gp.lp).
 //
 // Role parity: the reference delegates its partitioning host logic to C++
-// (KaMinPar, src/partitioning.cpp:172-199) and parlaylib. The TPU build keeps
+// (KaMinPar, src/partitioning.cpp:172-199) and parlaylib. The accelerator build keeps
 // device compute in XLA; these are the irregular host-side pieces where
 // C++ beats NumPy by orders of magnitude:
 //   - heavy-edge mutual matching for multilevel coarsening,
@@ -9,7 +9,7 @@
 //   - capacity-repair ("force balance") eviction passes.
 //
 // C ABI, bound via ctypes (gpann_tpu/native/__init__.py). Single-threaded:
-// the build host has one core; heavy parallel work belongs on the TPU.
+// the build host has one core; heavy parallel work belongs on the accelerator.
 
 #include <algorithm>
 #include <cstdint>

@@ -1,6 +1,6 @@
 """Routing layer: k-means-tree router + flat routing-point router.
 
-TPU-first replacement for the reference's L4a (``src/kmeans_tree_router.cpp``,
+Replacement for the reference's L4a (``src/kmeans_tree_router.cpp``,
 ``src/hnsw_router.h``, ``src/routes.cpp``).
 """
 

@@ -1,4 +1,4 @@
-"""Flat routing-point router: brute MXU scan + the 4 probe-ranking rules.
+"""Flat routing-point router: brute matmul scan + the 4 probe-ranking rules.
 
 Reference parity: ``src/hnsw_router.h``. The reference wraps an hnswlib graph
 walk over <=10M routing points labeled with shard ids, then folds the
@@ -10,7 +10,7 @@ returned neighbors into per-shard ``min_dist`` and ``frequency``
 - ``SPANNRoutingQuery``   — shards within ``(1+eps) * d_closest`` (``:76-85``).
 - ``FrequencyQuery``      — shards by vote frequency (``:87-103``).
 
-TPU redesign: the graph walk is replaced by an exact batched top-T scan of the
+Redesign: the graph walk is replaced by an exact batched top-T scan of the
 routing points (distance matmul + top-k). This returns the *true* T nearest
 routing points — i.e. the output HNSW approximates — so all four ranking rules
 apply unchanged, as pure array ops. Probe orders use -1 padding where a rule

@@ -10,7 +10,7 @@ Reference parity: ``src/kmeans_tree_router.{h,cpp}``.
 - ``ExtractPoints`` (``:174-201``): flatten all centroids + shard labels into
   a routing point set (this is what the reference trains its HNSW router on).
 - ``Query``/``FrequencyQuery`` (``:93-172``): the reference walks the trees
-  best-first under a distance-computation budget. TPU redesign: the walk is
+  best-first under a distance-computation budget. Redesign: the walk is
   replaced by an exact batched scan of the *extracted* centroid set (the
   reference's own HNSW router demonstrates extracted-points routing matches
   tree routing); ranking rules are shared with :class:`FlatRouter`.
@@ -270,7 +270,7 @@ class KMeansTreeRouter:
 
         The reference's ``Query`` walks all shards' trees best-first and
         stops after ``search_budget`` distance computations
-        (``kmeans_tree_router.cpp:93-130``). TPU redesign with identical
+        (``kmeans_tree_router.cpp:93-130``). Redesign with identical
         visibility semantics: per query, scan every TOP-LEVEL centroid (one
         per subtree), admit whole subtrees in increasing top-centroid
         distance while the running centroid count fits the budget, and let

@@ -1,6 +1,6 @@
 """In-shard search layer: shard-major IVF + fused distance-scan/top-k.
 
-TPU-first replacement for the reference's L4b (``src/inverted_index.h``,
+Replacement for the reference's L4b (``src/inverted_index.h``,
 ``src/inverted_index_hnsw.h``, ``src/shard_searches.cpp``).
 """
 

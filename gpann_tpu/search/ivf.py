@@ -1,11 +1,11 @@
-"""Shard-major IVF index: the TPU-native in-shard search engine.
+"""Shard-major IVF index: the accelerator in-shard search engine.
 
 Reference parity: the brute-force ``InvertedIndex`` (``src/inverted_index.h``)
-is *already* the right TPU design — points re-laid-out contiguously by cluster
+is *already* the right GPU design — points re-laid-out contiguously by cluster
 plus an id permutation (``inverted_index.h:20-41``); its query is a scan of
 the probed buckets into a bounded heap (``inverted_index.h:43-75``). Here the
 layout becomes a padded ``[num_shards, capacity, d]`` tensor, and a bucket
-scan becomes one ``[m, capacity]`` distance matmul + ``lax.top_k`` on the MXU.
+scan becomes one ``[m, capacity]`` distance matmul + ``lax.top_k``.
 
 It also subsumes the HNSW-per-shard search bench (``src/shard_searches.cpp``):
 an exact scan returns the true in-shard top-k, i.e. it achieves the recall of
@@ -48,8 +48,8 @@ def _round_up(x: int, m: int) -> int:
 def _exact_rescore(qs, block, scan_d, pos, k: int, metric: Metric):
     """Exact f32 re-ranking of scanned candidates.
 
-    The HIGH-precision MXU scan ranks with ~2^-16 relative error; gathering
-    the top-K candidates and recomputing their distances exactly on the VPU
+    The HIGH-precision matmul scan (TF32 on the GPU) misorders near-ties;
+    gathering the top-K candidates and recomputing their distances exactly
     (sum((q-c)^2) / exact dot) restores exact top-k at negligible cost
     (candidate set is [m, K, d] with K ~ 16). Masked (inf) scan entries stay
     masked. Returns (dists [m, k], positions-in-block [m, k])."""
@@ -210,7 +210,7 @@ class IVFIndex:
 
         self.metric: Metric = metric
         # HIGH-precision scan + exact candidate rescore = exact top-k at
-        # near-bf16 speed (see _exact_rescore)
+        # reduced-precision speed (see _exact_rescore)
         self.precision = default_precision() if precision is None else precision
         self.rescore = rescore
         self.num_shards = len(clusters)

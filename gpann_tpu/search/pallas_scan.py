@@ -1,21 +1,25 @@
-"""Pallas fused distance-scan kernel: matmul -> per-bin top-2 epilogue.
+"""Fused distance scan for the GPU: TF32 matmul + per-bin top-2 epilogue.
 
-The XLA scan path materializes the [m, cap] distance matrix in HBM and runs
-``lax.top_k`` over it — measured ~0.5 ms of matmul + ~3.9 ms of top_k/HBM
-traffic per [1024 x 62592 x 96] block on v5e. This kernel keeps each distance
-tile in VMEM and reduces it to per-bin (BIN=128 columns, the lane width)
-min1/min2 + argmins in the epilogue, so HBM sees only [m, cap/128] summaries
-(64x smaller than dm).
+The plain XLA scan (``serve.py``'s exact path) writes the f32 ``[qb, cap]``
+distance tile to device memory and reads it back for ``lax.top_k``. This
+Pallas kernel (Triton route) reduces every distance tile in registers to
+per-bin (min1, argmin1, min2, argmin2), so device memory sees only
+``[m, 2 * cap / BIN]`` summaries. Top-k then runs at bin granularity and the
+winning candidates get an exact f32 rescore. A true neighbor is lost only
+when three or more of the true top-k share one bin (birthday statistics over
+``cap / BIN`` bins; the candidate oversample absorbs stragglers).
 
-Top-k then runs at bin granularity (cheap) and the winning candidates get an
-exact f32 rescore. A true neighbor is lost only when >= 3 of the true top-k
-collide in one 128-wide bin (birthday statistics over cap/128 bins; the
-candidate oversample absorbs stragglers) — the same design point as
-TPU-KNN / ``lax.approx_max_k``.
+Bin layout. Program ``(b, j, i)`` scans base tile ``j`` (``TILE = BIN *
+WIDTH`` rows) of probe block ``b`` for query tile ``i``. It walks the tile in
+``BIN`` steps of ``WIDTH`` consecutive rows; column ``w`` of every step feeds
+bin ``j * WIDTH + w``. So bin ``g = j * WIDTH + w`` holds the ``BIN`` rows
+``j * TILE + c * WIDTH + w`` (``c < BIN``): a strided set, which keeps the
+top-2 update elementwise across the ``[tq, WIDTH]`` tile. Programs carry
+nothing between them and may run in any order.
 
-Mosaic constraints honored: 3D reshapes keep the last dim = 128; every
-HBM-facing output block has a 128-multiple last dim (hence tc = 128*BIN);
-the dot is chunked inside the kernel to bound VMEM.
+Precision. ``pl.dot`` on f32 operands runs in TF32 here (10 mantissa bits,
+input rounding about 2^-11 relative). Only the candidate set comes from it;
+the exact f32 rescore orders the survivors.
 """
 
 from __future__ import annotations
@@ -27,152 +31,237 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from gpann_tpu.core.distances import Metric
 
-BIN = 128          # columns per bin = TPU lane width
-INNER = 1024       # dot-chunk columns inside the kernel (VMEM bound:
-                   # base tile 6.3MB double-buffered + dot chunk must stay <16MB)
+# Block sizes tuned on an H100 at the serving shapes (PERF.md): 128-row query
+# tiles with 8 warps were fastest; 64-row tiles ran 1.3x slower, and 128-row
+# tiles with 4 warps 3.3x slower. 2-4 pipeline stages were within noise.
+BIN = 128                # base rows per bin
+WIDTH = 64               # bins per program = rows per inner step
+TILE = BIN * WIDTH       # base rows per program
+TQ = 128                 # query rows per program
+NUM_WARPS = 8
+NUM_STAGES = 3
+LANE = 128               # feature padding: Triton tensors are powers of two
 
 
-def _bintop2_kernel(q_ref, nvalid_ref, b_hbm, mn1_ref, am1_ref, mn2_ref,
-                    am2_ref, b_buf, sems, *, metric: str, tc: int):
-    """One (query-tile, base-tile) step: manually double-buffered INNER-chunk
-    DMAs from HBM + dot + bin top-2 epilogue.
+def _bintop2_kernel(q_ref, off_ref, size_ref, base_ref, mn1_ref, am1_ref,
+                    mn2_ref, am2_ref, *, metric: str):
+    """One (probe block, base tile, query tile) program.
 
-    The base tile stays in HBM (6.3 MB at tc=16384); Pallas auto-blocking
-    would double/triple-buffer it and blow the 16 MB VMEM budget at large
-    grids. Manual DMA keeps VMEM at ~2 x INNER-chunk (0.8 MB) + dot tile.
-    Squared norms are recomputed in-kernel (cheaper than a second DMA whose
-    1D slot buffer violates VMEM tiling); padding rows (>= n_valid, an SMEM
-    scalar so shard sizes can vary at runtime) are masked by global row
-    index.
+    ``off_ref``/``size_ref`` hold this block's first row in the flat base and
+    its live row count. Steps past the live rows are not run, so a padding
+    block (size 0) reads no base rows and emits +inf summaries.
     """
-    q = q_ref[:]                       # [tq, d]
+    j = pl.program_id(1)
+    size = size_ref[0]
+    row0 = off_ref[0] + j * TILE
+    live = size - j * TILE
+    steps = jnp.minimum(jnp.maximum((live + WIDTH - 1) // WIDTH, 0), BIN)
+    q = q_ref[...]
     tq = q.shape[0]
     if metric != "mips":
-        qsq = jnp.sum(q * q, axis=1, keepdims=True)
-    j = pl.program_id(1)
-    n_chunks = tc // INNER
-    # per-chunk constants hoisted out of the chunk loop (VPU-bound kernel)
-    nb = INNER // BIN
-    cols_iota = jax.lax.broadcasted_iota(jnp.int32, (tq, nb, BIN), 2)
-    bin_iota = jax.lax.broadcasted_iota(jnp.int32, (tq, nb), 1)
-    row_iota = jax.lax.broadcasted_iota(jnp.int32, (1, INNER), 1)
+        qsq = jnp.sum(q * q, axis=1)[:, None]
+    cols = jnp.arange(WIDTH, dtype=jnp.int32)
 
-    def dma(slot, c):
-        # b_hbm is the FULL array in HBM (ANY memory space only supports
-        # whole-array blocks); chunk offsets are global
-        off = j * tc + c * INNER
-        return pltpu.make_async_copy(
-            b_hbm.at[pl.ds(off, INNER), :],
-            b_buf.at[slot], sems.at[slot],
-        )
-
-    dma(0, 0).start()
-    for c in range(n_chunks):  # static unroll: n_chunks = tc/INNER = 16
-        slot = c % 2
-        if c + 1 < n_chunks:
-            dma((c + 1) % 2, c + 1).start()
-        dma(slot, c).wait()
-        b = b_buf[slot]
-        off = j * tc + c * INNER
-        dots = jnp.dot(q, b.T, preferred_element_type=jnp.float32)
+    def body(c, carry):
+        m1, a1, m2, a2 = carry
+        b = base_ref[pl.ds(row0 + c * WIDTH, WIDTH), :]
+        # f32 operands at HIGH precision: TF32 tensor-core product
+        dots = pl.dot(q, b, trans_b=True, precision=jax.lax.Precision.HIGH)
         if metric == "mips":
-            dm = 1.0 - dots
+            d = 1.0 - dots
         else:
-            bsq = jnp.sum(b * b, axis=1)
-            dm = qsq + bsq[None, :] - 2.0 * dots
-        # mask padding rows (their vectors are zeros) by global row index
-        dm = jnp.where(off + row_iota < nvalid_ref[0], dm, jnp.inf)
-        dm3 = dm.reshape(tq, nb, BIN)
-        local1 = jnp.argmin(dm3, axis=2).astype(jnp.int32)
-        mn1 = jnp.min(dm3, axis=2)
-        dm3b = jnp.where(cols_iota == local1[:, :, None], jnp.inf, dm3)
-        local2 = jnp.argmin(dm3b, axis=2).astype(jnp.int32)
-        mn2 = jnp.min(dm3b, axis=2)
-        sl = slice(c * nb, (c + 1) * nb)
-        mn1_ref[:, sl] = mn1
-        mn2_ref[:, sl] = mn2
-        am1_ref[:, sl] = off + bin_iota * BIN + local1
-        am2_ref[:, sl] = off + bin_iota * BIN + local2
+            d = qsq + jnp.sum(b * b, axis=1)[None, :] - 2.0 * dots
+        d = jnp.where((c * WIDTH + cols < live)[None, :], d, jnp.inf)
+        lt1 = d < m1
+        lt2 = d < m2
+        m2 = jnp.where(lt1, m1, jnp.where(lt2, d, m2))
+        a2 = jnp.where(lt1, a1, jnp.where(lt2, c, a2))
+        m1 = jnp.where(lt1, d, m1)
+        a1 = jnp.where(lt1, c, a1)
+        return m1, a1, m2, a2
+
+    inf = jnp.full((tq, WIDTH), jnp.inf, jnp.float32)
+    zero = jnp.zeros((tq, WIDTH), jnp.int32)
+    m1, a1, m2, a2 = jax.lax.fori_loop(0, steps, body, (inf, zero, inf, zero))
+    first = j * TILE + cols[None, :]
+    mn1_ref[...] = m1
+    am1_ref[...] = first + a1 * WIDTH
+    mn2_ref[...] = m2
+    am2_ref[...] = first + a2 * WIDTH
 
 
-@functools.partial(jax.jit, static_argnames=("metric", "tq", "tc", "interpret"))
-def binmin_scan(
-    qs: jnp.ndarray,          # [m, d] float32
-    base: jnp.ndarray,        # [cap, d] float32 (rows padded arbitrarily)
-    n_valid,                  # scalar: rows < n_valid are real (rest padding)
+def _pad_cols(x: jnp.ndarray, d: int) -> jnp.ndarray:
+    """Zero feature columns up to ``d``; they change no distance."""
+    return x if x.shape[1] == d else jnp.pad(x, ((0, 0), (0, d - x.shape[1])))
+
+
+def padded_dim(d: int) -> int:
+    """Feature width the kernel scans: ``d`` rounded up to ``LANE``."""
+    return -(-d // LANE) * LANE
+
+
+@functools.partial(jax.jit,
+                   static_argnames=("metric", "qb", "cap", "tq", "interpret"))
+def bin_top2_blocks(
+    queries_blocks: jnp.ndarray,   # [nb*qb, d] block-major query rows
+    base_flat: jnp.ndarray,        # [R, d] flat base
+    row_off: jnp.ndarray,          # [nb] int32 first base row of each window
+    sizes: jnp.ndarray,            # [nb] int32 live rows per window (0=skip)
     metric: Metric = "l2",
-    tq: int = 128,
-    tc: int = 16384,
+    qb: int = TQ,
+    cap: int = TILE,
+    tq: int = TQ,
     interpret: bool = False,
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Per-bin top-2 (distances, global column ids) over the whole base.
+    """Per-bin top-2 of block ``b``'s ``qb`` query rows against base rows
+    ``[row_off[b], row_off[b] + cap)`` (live prefix ``sizes[b]``).
 
-    m must be a multiple of tq; cap a multiple of tc (tc = 128*BIN so output
-    tiles have 128 columns). Returns (mins [m, 2*cap/BIN],
-    argmins [m, 2*cap/BIN]) with the two per-bin entries laid out as
-    [all min1 | all min2] halves.
+    Returns ``(mins [nb*qb, 2L], local row ids [nb*qb, 2L])`` with
+    ``L = cap / BIN`` and the two per-bin entries laid out as
+    ``[all min1 | all min2]``. Every window must lie inside ``base_flat``.
     """
-    m = qs.shape[0]
-    if m % tq:
-        raise ValueError(
-            f"query count {m} must be a multiple of tq={tq} — trailing rows "
-            "would never be written (fused_topk pads for you)"
-        )
-    # HBM DMA slices need the minor dim aligned to the 128-lane tiling; zero
-    # column padding changes no distance (callers may pre-pad to avoid the
-    # copy — pad_base_for_scan does). qs and base may arrive with different
-    # widths (one already padded): bring both to the common 128-multiple.
-    d = -(-max(qs.shape[1], base.shape[1]) // 128) * 128
-    if qs.shape[1] != d:
-        qs = jnp.pad(qs, ((0, 0), (0, d - qs.shape[1])))
-    if base.shape[1] != d:
-        base = jnp.pad(base, ((0, 0), (0, d - base.shape[1])))
-    cap = base.shape[0]
-    grid = (m // tq, cap // tc)
-    nv = jnp.asarray(n_valid, jnp.int32).reshape(1)
-    kernel = functools.partial(_bintop2_kernel, metric=metric, tc=tc)
-    nbin_t = tc // BIN
+    nb = row_off.shape[0]
+    total = queries_blocks.shape[0]
+    if total != nb * qb:
+        raise ValueError(f"{total} query rows for {nb} blocks of {qb}")
+    if qb % tq or tq < 16 or tq & (tq - 1):
+        raise ValueError(f"tq={tq} must be a power of two >= 16 dividing "
+                         f"qb={qb}")
+    if cap % TILE:
+        raise ValueError(f"cap={cap} must be a multiple of TILE={TILE}")
+    d = padded_dim(max(base_flat.shape[1], queries_blocks.shape[1]))
+    if base_flat.shape[0] * d >= 2**31:
+        raise ValueError("base too large for 32-bit element offsets")
+    base_flat = _pad_cols(base_flat, d)
+    queries_blocks = _pad_cols(queries_blocks, d)
     L = cap // BIN
+    rpb = qb // tq
+    grid = (nb, cap // TILE, rpb)   # query tiles innermost: L2 reuse of base
+    out_spec = pl.BlockSpec((tq, WIDTH), lambda b, j, i: (b * rpb + i, j))
     mn1, am1, mn2, am2 = pl.pallas_call(
-        kernel,
+        functools.partial(_bintop2_kernel, metric=metric),
         grid=grid,
         in_specs=[
-            pl.BlockSpec((tq, d), lambda i, j: (i, 0)),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pl.ANY),
+            pl.BlockSpec((tq, d), lambda b, j, i: (b * rpb + i, 0)),
+            pl.BlockSpec((1,), lambda b, j, i: (b,)),
+            pl.BlockSpec((1,), lambda b, j, i: (b,)),
+            pl.BlockSpec(base_flat.shape, lambda b, j, i: (0, 0)),
         ],
-        out_specs=[
-            pl.BlockSpec((tq, nbin_t), lambda i, j: (i, j)),
-            pl.BlockSpec((tq, nbin_t), lambda i, j: (i, j)),
-            pl.BlockSpec((tq, nbin_t), lambda i, j: (i, j)),
-            pl.BlockSpec((tq, nbin_t), lambda i, j: (i, j)),
-        ],
+        out_specs=[out_spec] * 4,
         out_shape=[
-            jax.ShapeDtypeStruct((m, L), jnp.float32),
-            jax.ShapeDtypeStruct((m, L), jnp.int32),
-            jax.ShapeDtypeStruct((m, L), jnp.float32),
-            jax.ShapeDtypeStruct((m, L), jnp.int32),
+            jax.ShapeDtypeStruct((total, L), jnp.float32),
+            jax.ShapeDtypeStruct((total, L), jnp.int32),
+            jax.ShapeDtypeStruct((total, L), jnp.float32),
+            jax.ShapeDtypeStruct((total, L), jnp.int32),
         ],
-        scratch_shapes=[
-            pltpu.VMEM((2, INNER, d), jnp.float32),
-            pltpu.SemaphoreType.DMA((2,)),
-        ],
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS,
+                                             num_stages=NUM_STAGES),
         interpret=interpret,
-    )(qs, nv, base)
-    return (
-        jnp.concatenate([mn1, mn2], axis=1),
-        jnp.concatenate([am1, am2], axis=1),
-    )
+        name="bin_top2_scan",
+    )(queries_blocks, jnp.asarray(row_off, jnp.int32),
+      jnp.asarray(sizes, jnp.int32), base_flat)
+    return (jnp.concatenate([mn1, mn2], axis=1),
+            jnp.concatenate([am1, am2], axis=1))
+
+
+def bin_top2_reference(qs, base, n_valid, metric: Metric = "l2",
+                       precision=jax.lax.Precision.HIGHEST):
+    """Plain-JAX per-bin top-2 in the kernel's bin layout (one block).
+
+    ``base`` rows must be a multiple of ``TILE``. Same return layout as
+    :func:`bin_top2_blocks`; ties break toward the lower row, as the kernel's
+    strict ``<`` update does.
+    """
+    d = max(qs.shape[1], base.shape[1])
+    qs, base = _pad_cols(qs, d), _pad_cols(base, d)
+    dots = jnp.dot(qs, base.T, precision=precision,
+                   preferred_element_type=jnp.float32)
+    if metric == "mips":
+        dm = 1.0 - dots
+    else:
+        dm = (jnp.sum(qs * qs, 1)[:, None] + jnp.sum(base * base, 1)[None]
+              - 2.0 * dots)
+    m, n = dm.shape
+    dm = jnp.where(jnp.arange(n)[None, :] < n_valid, dm, jnp.inf)
+    # [m, tiles, BIN steps, WIDTH] -> bins are (tile, w) over the step axis
+    dm4 = dm.reshape(m, n // TILE, BIN, WIDTH)
+    order = jnp.argsort(dm4, axis=2, stable=True)[:, :, :2]
+    mins = jnp.take_along_axis(dm4, order, axis=2)
+    rows = (jnp.arange(n // TILE)[None, :, None, None] * TILE
+            + order * WIDTH + jnp.arange(WIDTH)[None, None, None, :])
+
+    def halves(x):  # [m, tiles, 2, WIDTH] -> [all first | all second]
+        return jnp.concatenate([x[:, :, 0].reshape(m, -1),
+                                x[:, :, 1].reshape(m, -1)], axis=1)
+
+    return halves(mins), halves(rows)
+
+
+@functools.partial(
+    jax.jit,
+    static_argnames=("k", "metric", "qb", "cap", "num_candidate_bins",
+                     "interpret", "tq", "phase2"),
+)
+def fused_topk_blocks(
+    queries_blocks: jnp.ndarray,
+    base_flat: jnp.ndarray,
+    row_off: jnp.ndarray,
+    sizes: jnp.ndarray,
+    k: int,
+    metric: Metric = "l2",
+    qb: int = TQ,
+    cap: int = TILE,
+    num_candidate_bins: int = 0,
+    interpret: bool = False,
+    tq: int = TQ,
+    phase2: str = "exact",
+) -> Tuple[jnp.ndarray, jnp.ndarray]:
+    """Per-block top-k over the windows of :func:`bin_top2_blocks`.
+
+    Returns ``(dists [nb*qb, k], LOCAL row ids [nb*qb, k])``: one kernel
+    launch plus one batched candidate pick and rescore for the entire block
+    list, the serving engine's whole scan stage.
+
+    ``phase2`` picks the ``nc`` candidate bins from the bin summaries:
+    "exact" = ``lax.top_k``; "approx" = ``lax.approx_max_k``, which on the
+    GPU lowers to an exact selection as well. The exact f32 rescore then
+    orders the survivors. ``nc`` defaults to ``max(k, 16)``.
+    """
+    d = padded_dim(max(base_flat.shape[1], queries_blocks.shape[1]))
+    base_flat = _pad_cols(base_flat, d)
+    queries_blocks = _pad_cols(queries_blocks, d)
+    mins, argmins = bin_top2_blocks(queries_blocks, base_flat, row_off, sizes,
+                                    metric, qb=qb, cap=cap, tq=tq,
+                                    interpret=interpret)
+    total = queries_blocks.shape[0]
+    nc = min(num_candidate_bins or max(k, 16), mins.shape[1])
+    if phase2 == "approx" and nc < mins.shape[1]:
+        negb, bpos = jax.lax.approx_max_k(-mins, nc, recall_target=0.95)
+    else:
+        negb, bpos = jax.lax.top_k(-mins, nc)
+    cand_local = jnp.take_along_axis(argmins, bpos, axis=1)
+    row_off_rows = jnp.repeat(jnp.asarray(row_off, jnp.int32), qb,
+                              total_repeat_length=total)
+    cand = base_flat[row_off_rows[:, None] + cand_local]
+    if metric == "mips":
+        exact = 1.0 - jnp.einsum("md,mcd->mc", queries_blocks, cand,
+                                 precision=jax.lax.Precision.HIGHEST)
+    else:
+        exact = jnp.sum((queries_blocks[:, None, :] - cand) ** 2, axis=-1)
+    exact = jnp.where(jnp.isfinite(-negb), exact, jnp.inf)
+    neg, pos = jax.lax.top_k(-exact, k)
+    return -neg, jnp.take_along_axis(cand_local, pos, axis=1)
 
 
 @functools.partial(
     jax.jit,
     static_argnames=("k", "metric", "num_candidate_bins", "interpret", "tq",
-                     "tc", "phase2"),
+                     "phase2"),
 )
 def fused_topk(
     qs: jnp.ndarray,
@@ -182,272 +271,39 @@ def fused_topk(
     metric: Metric = "l2",
     num_candidate_bins: int = 0,
     interpret: bool = False,
-    tq: int = 128,
-    tc: int = 16384,
+    tq: int = TQ,
     phase2: str = "exact",
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Top-k of each query in ``base`` via the bin-top-2 kernel.
+    """Top-k of each query in ``base`` (rows ``>= n_valid`` are padding):
+    :func:`fused_topk_blocks` with one block. Returns
+    ``(dists [m, k], row ids [m, k])``; padding rows never win.
 
-    Phase 1: Pallas bin summaries. Phase 2: ``lax.top_k`` over bin entries.
-    Phase 3: exact f32 rescore of the candidates. Returns
-    (dists [m, k], column-ids [m, k]); padding rows never win.
-
-    Candidate entries default to ``max(k, 16)``: lax.top_k on TPU has a fast
-    path for k <= 16 (measured: nc=16 -> 0.17 ms vs nc=32 -> 1.4 ms per
-    [1024 x 62592] block) and recall@10 is already 0.9999 at nc=16 thanks to
-    the top-2-per-bin epilogue.
+    ``base`` rows must be a multiple of ``TILE`` and its columns a multiple
+    of ``LANE`` to avoid a per-call copy; :func:`pad_base_for_scan` does both.
     """
-    nc = num_candidate_bins or max(k, 16)
-    if base.shape[1] % 128:
-        d_pad = -(-base.shape[1] // 128) * 128
-        base = jnp.pad(base, ((0, 0), (0, d_pad - base.shape[1])))
-    if qs.shape[1] != base.shape[1]:
-        qs = jnp.pad(qs, ((0, 0), (0, base.shape[1] - qs.shape[1])))
     m = qs.shape[0]
-    if m % tq:  # pad query rows to the grid; sliced off below
-        qs = jnp.pad(qs, ((0, -(-m // tq) * tq - m), (0, 0)))
-    mins, argmins = binmin_scan(qs, base, n_valid, metric, tq=tq, tc=tc,
-                                interpret=interpret)
-    if mins.shape[0] != m:
-        qs, mins, argmins = qs[:m], mins[:m], argmins[:m]
-    nc = min(nc, mins.shape[1])
-    if phase2 == "approx" and nc < mins.shape[1]:
-        negb, bpos = jax.lax.approx_max_k(-mins, nc, recall_target=0.95)
-    else:
-        negb, bpos = jax.lax.top_k(-mins, nc)
-    cand_cols = jnp.take_along_axis(argmins, bpos, axis=1)
-    cand = base[cand_cols]
-    if metric == "mips":
-        exact = 1.0 - jnp.einsum(
-            "md,mcd->mc", qs, cand, precision=jax.lax.Precision.HIGHEST
-        )
-    else:
-        exact = jnp.sum((qs[:, None, :] - cand) ** 2, axis=-1)
-    exact = jnp.where(jnp.isfinite(-negb), exact, jnp.inf)
-    neg, pos = jax.lax.top_k(-exact, k)
-    return -neg, jnp.take_along_axis(cand_cols, pos, axis=1)
+    tq = min(tq, max(16, 1 << (max(m, 1) - 1).bit_length()))
+    m_pad = -(-m // tq) * tq
+    if m_pad != m:
+        qs = jnp.pad(qs, ((0, m_pad - m), (0, 0)))
+    n = base.shape[0]
+    n_pad = -(-n // TILE) * TILE
+    if n_pad != n:
+        base = jnp.pad(base, ((0, n_pad - n), (0, 0)))
+    d, i = fused_topk_blocks(
+        qs, base, jnp.zeros(1, jnp.int32),
+        jnp.reshape(jnp.asarray(n_valid, jnp.int32), (1,)), k, metric,
+        qb=m_pad, cap=n_pad, num_candidate_bins=num_candidate_bins,
+        interpret=interpret, tq=tq, phase2=phase2,
+    )
+    return d[:m], i[:m]
 
 
-def fused_topk_chunked(
-    qs,
-    base: jnp.ndarray,
-    n_valid,
-    k: int,
-    metric: Metric = "l2",
-    query_chunk: int = 1024,
-    **kwargs,
-) -> Tuple[np.ndarray, np.ndarray]:
-    """Host-chunked :func:`fused_topk` for large query batches.
-
-    XLA cross-program-prefetches the whole query operand into VMEM; above
-    ~1-2k queries that (plus the double-buffered 6.3 MB base tiles) blows the
-    16 MB budget. Chunking the queries keeps each call's footprint flat.
-    Returns numpy arrays.
-    """
-    qs = jnp.asarray(qs, jnp.float32)
-    outs_d, outs_i = [], []
-    for s in range(0, qs.shape[0], query_chunk):
-        d, i = fused_topk(qs[s : s + query_chunk], base, n_valid, k, metric,
-                          **kwargs)
-        outs_d.append(np.asarray(d))
-        outs_i.append(np.asarray(i))
-    return np.concatenate(outs_d), np.concatenate(outs_i)
-
-
-def pad_base_for_scan(
-    points: np.ndarray, metric: Metric, tc: int = 16384
-) -> Tuple[np.ndarray, int]:
-    """Pad base rows to a multiple of tc AND columns to a multiple of 128
-    (HBM DMA tiling); zero column padding changes no distance. Returns
-    (padded base, n_valid) — rows >= n_valid are padding, masked in-kernel."""
+def pad_base_for_scan(points: np.ndarray) -> Tuple[np.ndarray, int]:
+    """Pad base rows to a multiple of ``TILE`` and columns to a multiple of
+    ``LANE``. Returns (padded base, n_valid): rows ``>= n_valid`` are
+    padding, masked in the kernel."""
     n, d = points.shape
-    n_pad = -(-n // tc) * tc
-    d_pad = -(-d // 128) * 128
-    base = np.zeros((n_pad, d_pad), np.float32)
+    base = np.zeros((-(-n // TILE) * TILE, padded_dim(d)), np.float32)
     base[:n, :d] = points
     return base, n
-
-
-def _bintop2_blocks_kernel(q_ref, row_off_ref, sizes_ref, b_hbm, mn1_ref,
-                           am1_ref, mn2_ref, am2_ref, b_buf, sems,
-                           *, metric: str, tc: int):
-    """Multi-block variant of :func:`_bintop2_kernel`: grid axis 0 walks probe
-    blocks, each scanning a different window of one flat base array.
-
-    ``row_off_ref``/``sizes_ref`` (SMEM, [num_blocks]) give each block's
-    first row in the flat base and its live row count. One ``pallas_call``
-    covers every (block, query-tile, base-tile) step — the per-call dispatch
-    overhead and the per-block HBM gather of the lax.scan-of-kernels
-    structure (measured ~2 ms/block of the serving engine's scan stage) are
-    amortized away. Padding blocks (size 0) skip the DMA + compute entirely
-    via ``pl.when`` and emit +inf summaries.
-    """
-    b = pl.program_id(0)
-    j = pl.program_id(2)
-    size = sizes_ref[b]
-    nb_bins = INNER // BIN
-    tq = q_ref.shape[0]
-
-    @pl.when(size == 0)
-    def _pad():
-        mn1_ref[...] = jnp.full_like(mn1_ref, jnp.inf)
-        mn2_ref[...] = jnp.full_like(mn2_ref, jnp.inf)
-        am1_ref[...] = jnp.zeros_like(am1_ref)
-        am2_ref[...] = jnp.zeros_like(am2_ref)
-
-    @pl.when(size > 0)
-    def _real():
-        q = q_ref[:]
-        if metric != "mips":
-            qsq = jnp.sum(q * q, axis=1, keepdims=True)
-        n_chunks = tc // INNER
-        cols_iota = jax.lax.broadcasted_iota(jnp.int32, (tq, nb_bins, BIN), 2)
-        bin_iota = jax.lax.broadcasted_iota(jnp.int32, (tq, nb_bins), 1)
-        row_iota = jax.lax.broadcasted_iota(jnp.int32, (1, INNER), 1)
-        base_row = row_off_ref[b]
-
-        def dma(slot, c):
-            off = base_row + j * tc + c * INNER
-            return pltpu.make_async_copy(
-                b_hbm.at[pl.ds(off, INNER), :],
-                b_buf.at[slot], sems.at[slot],
-            )
-
-        dma(0, 0).start()
-        for c in range(n_chunks):
-            slot = c % 2
-            if c + 1 < n_chunks:
-                dma((c + 1) % 2, c + 1).start()
-            dma(slot, c).wait()
-            bb = b_buf[slot]
-            off_local = j * tc + c * INNER
-            dots = jnp.dot(q, bb.T, preferred_element_type=jnp.float32)
-            if metric == "mips":
-                dm = 1.0 - dots
-            else:
-                bsq = jnp.sum(bb * bb, axis=1)
-                dm = qsq + bsq[None, :] - 2.0 * dots
-            dm = jnp.where(off_local + row_iota < size, dm, jnp.inf)
-            dm3 = dm.reshape(tq, nb_bins, BIN)
-            local1 = jnp.argmin(dm3, axis=2).astype(jnp.int32)
-            mn1 = jnp.min(dm3, axis=2)
-            dm3b = jnp.where(cols_iota == local1[:, :, None], jnp.inf, dm3)
-            local2 = jnp.argmin(dm3b, axis=2).astype(jnp.int32)
-            mn2 = jnp.min(dm3b, axis=2)
-            sl = slice(c * nb_bins, (c + 1) * nb_bins)
-            mn1_ref[:, sl] = mn1
-            mn2_ref[:, sl] = mn2
-            am1_ref[:, sl] = off_local + bin_iota * BIN + local1
-            am2_ref[:, sl] = off_local + bin_iota * BIN + local2
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("k", "metric", "qb", "cap", "num_candidate_bins",
-                     "interpret", "tq", "tc", "phase2"),
-)
-def fused_topk_blocks(
-    queries_blocks: jnp.ndarray,   # [nb*qb, d] block-major query rows
-    base_flat: jnp.ndarray,        # [R, d] flat base (R multiple of nothing;
-                                   # every window [row_off, row_off+cap) must
-                                   # be in-bounds)
-    row_off: jnp.ndarray,          # [nb] int32 first base row per block
-    sizes: jnp.ndarray,            # [nb] int32 live rows per block (0=skip)
-    k: int,
-    metric: Metric = "l2",
-    qb: int = 512,
-    cap: int = 16384,
-    num_candidate_bins: int = 0,
-    interpret: bool = False,
-    tq: int = 128,
-    tc: int = 16384,
-    phase2: str = "exact",
-) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Per-block top-k: block ``b``'s ``qb`` query rows are scanned against
-    base rows ``[row_off[b], row_off[b]+cap)`` (live prefix ``sizes[b]``).
-
-    Returns (dists [nb*qb, k], LOCAL row ids [nb*qb, k]). One pallas_call +
-    one batched phase-2/rescore for the entire block list — the serving
-    engine's whole scan stage in a single compiled dispatch.
-
-    ``phase2``: how the nc candidate bins are picked from the [total, 2L]
-    bin summaries. "exact" = ``lax.top_k`` (sorting network; at serving
-    shapes [8k x 4096] this was measured as a double-digit-ms share of the
-    batch). "approx" = ``lax.approx_max_k`` (TPU partial-reduction top-k) —
-    the same approximate-candidate design point as the bin top-2 epilogue
-    itself; the exact f32 rescore then orders the survivors.
-    """
-    nb = row_off.shape[0]
-    total = queries_blocks.shape[0]
-    assert total == nb * qb, (total, nb, qb)
-    if qb % tq:
-        raise ValueError(f"qb={qb} must be a multiple of tq={tq}")
-    if cap % tc:
-        raise ValueError(f"cap={cap} must be a multiple of tc={tc}")
-    d = base_flat.shape[1]
-    if d % 128:
-        dp = -(-d // 128) * 128
-        base_flat = jnp.pad(base_flat, ((0, 0), (0, dp - d)))
-        d = dp
-    if queries_blocks.shape[1] != d:
-        queries_blocks = jnp.pad(
-            queries_blocks, ((0, 0), (0, d - queries_blocks.shape[1]))
-        )
-    nc = num_candidate_bins or max(k, 16)
-    L = cap // BIN
-    nbin_t = tc // BIN
-    rows_per_block = qb // tq
-    grid = (nb, rows_per_block, cap // tc)
-    kernel = functools.partial(_bintop2_blocks_kernel, metric=metric, tc=tc)
-    mn1, am1, mn2, am2 = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((tq, d), lambda b, i, j: (b * rows_per_block + i, 0)),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pl.ANY),
-        ],
-        out_specs=[
-            pl.BlockSpec((tq, nbin_t), lambda b, i, j: (b * rows_per_block + i, j)),
-            pl.BlockSpec((tq, nbin_t), lambda b, i, j: (b * rows_per_block + i, j)),
-            pl.BlockSpec((tq, nbin_t), lambda b, i, j: (b * rows_per_block + i, j)),
-            pl.BlockSpec((tq, nbin_t), lambda b, i, j: (b * rows_per_block + i, j)),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((total, L), jnp.float32),
-            jax.ShapeDtypeStruct((total, L), jnp.int32),
-            jax.ShapeDtypeStruct((total, L), jnp.float32),
-            jax.ShapeDtypeStruct((total, L), jnp.int32),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((2, INNER, d), jnp.float32),
-            pltpu.SemaphoreType.DMA((2,)),
-        ],
-        interpret=interpret,
-    )(queries_blocks,
-      jnp.asarray(row_off, jnp.int32),
-      jnp.asarray(sizes, jnp.int32),
-      base_flat)
-    mins = jnp.concatenate([mn1, mn2], axis=1)
-    argmins = jnp.concatenate([am1, am2], axis=1)
-    nc = min(nc, mins.shape[1])
-    if phase2 == "approx" and nc < mins.shape[1]:
-        negb, bpos = jax.lax.approx_max_k(-mins, nc, recall_target=0.95)
-    else:
-        negb, bpos = jax.lax.top_k(-mins, nc)
-    cand_local = jnp.take_along_axis(argmins, bpos, axis=1)
-    row_off_rows = jnp.repeat(
-        jnp.asarray(row_off, jnp.int32), qb, total_repeat_length=total
-    )
-    cand = base_flat[row_off_rows[:, None] + cand_local]
-    if metric == "mips":
-        exact = 1.0 - jnp.einsum(
-            "md,mcd->mc", queries_blocks, cand,
-            precision=jax.lax.Precision.HIGHEST,
-        )
-    else:
-        exact = jnp.sum((queries_blocks[:, None, :] - cand) ** 2, axis=-1)
-    exact = jnp.where(jnp.isfinite(-negb), exact, jnp.inf)
-    neg, pos = jax.lax.top_k(-exact, k)
-    return -neg, jnp.take_along_axis(cand_local, pos, axis=1)

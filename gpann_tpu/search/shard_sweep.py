@@ -6,7 +6,7 @@ index, record which returned points are within the query's GT k-distance
 ("hits", ``:80-91``) and the median-of-reps amortized per-query time
 (``:57-75``).
 
-TPU redesign: the ef knob is the two-level IVF's ``sub_nprobe`` (see
+Redesign: the ef knob is the two-level IVF's ``sub_nprobe`` (see
 ``two_level.py``); a "run" is one batched grouped scan per shard, timed with
 device sync, with hits extracted by the identical dist <= d_k rule.
 """

@@ -2,8 +2,8 @@
 
 The reference sweeps HNSW ``ef_search`` in {50..500} per shard
 (``shard_searches.cpp:13``) to trade in-shard work against recall. An exact
-MXU scan has no such knob — it always achieves ef->inf recall at O(shard)
-FLOPs. The TPU-native knob (SURVEY.md §7, hard part 4) is **IVF inside the
+matmul scan has no such knob — it always achieves ef->inf recall at O(shard)
+FLOPs. The accelerator knob (SURVEY.md §7, hard part 4) is **IVF inside the
 shard**: each shard is balanced-k-means'd into sub-clusters of
 ~``target_sub_size`` points; a query probing a shard scans only its
 ``sub_nprobe`` closest sub-clusters. ``sub_nprobe`` sweeps coverage from

@@ -107,7 +107,7 @@ def test_uneven_query_batch_padded(setup):
 @pytest.mark.parametrize("rule", ["min_dist", "pyramid", "spann", "frequency"])
 def test_fused_distributed_serve_matches_single_chip(setup, rule):
     """The fused mesh program (route on-device + microbatch scan + all_gather
-    merge) must return the single-chip ServingEngine's results for all four
+    merge) must return the single-device ServingEngine's results for all four
     probe rules (VERDICT r1 item 4)."""
     from gpann_tpu.dist import DistributedServingEngine
     from gpann_tpu.route import centroid_router

@@ -3,7 +3,7 @@ jax.distributed, global shard mesh, collective query merge.
 
 This is the test the reference could never run (its MPI path is disabled and
 non-compiling, SURVEY.md §5.8): each process holds only its own shards
-(make_array_from_callback) and the merged results must match the single-chip
+(make_array_from_callback) and the merged results must match the single-device
 engine bit-for-bit.
 """
 

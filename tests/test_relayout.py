@@ -154,7 +154,7 @@ def test_scale_bench_shard_major_virtual_cli(tmp_path, monkeypatch, kind):
     GT + store-sampled router + contiguous curve pass. Parametrized over
     the numpy "hard" generator and the native counter-based "hard2" the
     real 1B run uses (eval/synth.py)."""
-    monkeypatch.setenv("HOME", str(tmp_path))
+    monkeypatch.setenv("GPANN_CACHE_DIR", str(tmp_path / "cache"))
     from gpann_tpu.cli import scale_bench
 
     args = [

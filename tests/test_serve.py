@@ -104,7 +104,8 @@ def test_recall_curve_matches_looped_serve(setup):
 
 
 def test_rescore_voting_matches_exact(setup):
-    """voting_impl='rescore' (bf16 candidate scan + exact f32 vote rescore)
+    """voting_impl='rescore' (DEFAULT-precision candidate scan + exact f32
+    vote rescore)
     must produce near-identical probe lists to the exact HIGH fold."""
     pts, q, gt_ids, gt_dists, clusters, router, engine = setup
     rp, rl = np.asarray(router.points), router.labels_np
@@ -126,11 +127,13 @@ def test_rescore_voting_matches_exact(setup):
 def test_binned_voting_matches_exact(setup):
     """voting_impl='binned' (Pallas bin-top-2 routing matmul + exact f32
     vote rescore) must produce near-identical probe lists to the exact HIGH
-    fold on a router large enough to populate many column bins."""
+    fold on a router large enough to populate many bins."""
+    from gpann_tpu.search.pallas_scan import TILE
+
     pts, q, gt_ids, gt_dists, clusters, router, engine = setup
     rng = np.random.default_rng(13)
-    # 2048 routing points -> 16 bins of 128 after padding; bin-top-2 keeps
-    # up to 32 finite candidates, comfortably above voting_t=8
+    # 2048 routing points fill all 64 bins of one tile; bin-top-2 keeps up
+    # to 128 finite candidates, comfortably above voting_t=8
     sample = rng.choice(len(pts), size=2048, replace=False)
     assign = np.concatenate(
         [np.full(len(c), b, np.int32) for b, c in enumerate(clusters)]
@@ -143,7 +146,7 @@ def test_binned_voting_matches_exact(setup):
     binned = ServingEngine(pts, clusters, rpts, rlbl, voting_impl="binned",
                            interpret=True)
     assert binned.router_n_valid == 2048
-    assert binned.router_points.shape[0] == 16384  # padded for the kernel
+    assert binned.router_points.shape[0] == TILE  # padded for the kernel
     for rule in ("min_dist", "frequency"):
         pe = exact.probe_order(q, 4, voting_t=8, rule=rule)
         pb = binned.probe_order(q, 4, voting_t=8, rule=rule)
@@ -160,25 +163,30 @@ def test_binned_voting_matches_exact(setup):
 def test_binned_voting_sparse_bins():
     """Fewer finite bin candidates than voting_t: inf-tail votes must be
     dropped (dummy shard), not counted as frequency votes for shard 0."""
+    from gpann_tpu.search.pallas_scan import TILE, WIDTH
+
     rng = np.random.default_rng(3)
-    pts = rng.standard_normal((1000, 8)).astype(np.float32)
+    n = TILE + 2000
+    pts = rng.standard_normal((n, 8)).astype(np.float32)
     q = rng.standard_normal((8, 8)).astype(np.float32)
-    base = [np.arange(0, 500, dtype=np.int32),
-            np.arange(500, 1000, dtype=np.int32)]
-    # 200 routing points -> 2 row bins -> only 4 finite candidates, below
-    # voting_t=8: the vote tail is +inf and must not pollute the fold
-    rsample = rng.choice(1000, size=200, replace=False)
-    rlbl = (rsample >= 500).astype(np.int32)
+    base = [np.arange(0, n // 2, dtype=np.int32),
+            np.arange(n // 2, n, dtype=np.int32)]
+    # TILE + 8 routing points: a full tile (WIDTH bins, 2 candidates each)
+    # plus 8 rows of a second tile -> 2 * WIDTH + 8 finite candidates, below
+    # voting_t: the vote tail is +inf and must not pollute the fold
+    rsample = rng.choice(n, size=TILE + 8, replace=False)
+    rlbl = (rsample >= n // 2).astype(np.int32)
+    voting_t = 2 * WIDTH + 40
     exact = ServingEngine(pts, base, pts[rsample], rlbl,
                           voting_impl="exact")
     binned = ServingEngine(pts, base, pts[rsample], rlbl,
                            voting_impl="binned", interpret=True)
     for rule in ("min_dist", "frequency"):
-        pb = binned.probe_order(q, 2, voting_t=8, rule=rule)
+        pb = binned.probe_order(q, 2, voting_t=voting_t, rule=rule)
         assert set(np.unique(pb)) <= {0, 1, 2}  # valid shards + dummy only
-        pe = exact.probe_order(q, 2, voting_t=8, rule=rule)
-        # the 4 surviving candidates usually include each shard's nearest
-        # routing point; first-probe agreement stays high
+        pe = exact.probe_order(q, 2, voting_t=voting_t, rule=rule)
+        # the surviving candidates include each query's nearest routing
+        # points; first-probe agreement stays high
         agree = (pe[:, 0] == pb[:, 0]).mean()
         assert agree >= 0.75, (rule, agree)
 
@@ -205,7 +213,7 @@ def test_serve_binned_fallback_tiny_shards(setup):
 
 
 def test_serve_binned_mode_large_shards():
-    # big enough shards (>=16k points after padding) use the pallas path
+    # big enough shards (several kernel tiles) use the pallas path
     rng = np.random.default_rng(11)
     pts = rng.standard_normal((40_000, 16)).astype(np.float32)
     q = rng.standard_normal((16, 16)).astype(np.float32)
@@ -224,7 +232,7 @@ def test_serve_binned_mode_large_shards():
     _, fi = binned.serve(q, k=10, nprobes=2, voting_t=2, query_block=16)
     rec = recall_from_ids(pts, q, fi, kth, 10)
     assert rec > 0.97, rec
-    # phase2="approx" (partial-reduction candidate-bin top-k) must match
+    # phase2="approx" (lax.approx_max_k candidate-bin pick) must match
     # the exact phase-2 selection within the same recall envelope
     approx = ServingEngine(
         pts, clusters, np.asarray(router.points), router.labels_np,

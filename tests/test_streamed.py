@@ -207,9 +207,9 @@ def test_synth_quantize_matches_formula():
 
 
 def test_sliced_scan_matches_unsliced(setup, monkeypatch):
-    """HBM-guard regression (round 5): a 1B/64-shard curve pass OOMed the
-    chip because one ~16.4M-row shard block plus its f32 widen + lane-pad
-    copies exceeded HBM. Shards above GPANN_MAX_SCAN_ROWS now scan as
+    """Device-memory guard: one ~16.4M-row shard block of a 1B/64-shard
+    curve pass plus its f32 widen + feature-pad copies can exceed device
+    memory. Shards above GPANN_MAX_SCAN_ROWS scan as
     consecutive row slices merged on host — results must be identical to
     the one-block scan (both exact and binned modes)."""
     pts, q, clusters, rp, rl = setup
@@ -234,9 +234,11 @@ def test_sliced_scan_matches_unsliced(setup, monkeypatch):
 
 
 def test_sliced_scan_binned_mode(monkeypatch):
-    """Binned-mode slicing (the exact config of the 1B OOM): shards larger
-    than one 16384-row Pallas tile slice at the tile-aligned limit and the
-    merged result matches the one-block binned scan."""
+    """Binned-mode slicing: shards larger than one kernel tile slice at the
+    tile-aligned limit and the merged result matches the one-block binned
+    scan."""
+    from gpann_tpu.search.pallas_scan import TILE
+
     rng = np.random.default_rng(2)
     n, d, s = 40_000, 16, 2
     pts = (rng.standard_normal((n, d)) * 3).astype(np.float32)
@@ -248,10 +250,10 @@ def test_sliced_scan_binned_mode(monkeypatch):
     eng = StreamedShardEngine(pts, clusters, rp, rl, scan_mode="binned",
                               interpret=True)
     monkeypatch.delenv("GPANN_MAX_SCAN_ROWS", raising=False)
-    assert eng.capacity > 16384  # 20k-row shards: 2 tiles
+    assert eng.capacity > TILE  # 20k-row shards: several tiles
     d1, i1, _ = eng.search(q, K, nprobes=2, voting_t=30)
-    monkeypatch.setenv("GPANN_MAX_SCAN_ROWS", "16384")
-    assert eng._scan_row_limit() == 16384 < eng.capacity
+    monkeypatch.setenv("GPANN_MAX_SCAN_ROWS", str(TILE))
+    assert eng._scan_row_limit() == TILE < eng.capacity
     d2, i2, _ = eng.search(q, K, nprobes=2, voting_t=30)
     overlap = np.mean([
         len(np.intersect1d(i1[r], i2[r])) for r in range(len(q))
